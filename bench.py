@@ -48,14 +48,10 @@ def main():
                          "offsets/parcel) instead of the 64-wide "
                          "corner table (1 offset/parcel); 8x less "
                          "table memory, ~8x slower gathers")
-    ap.add_argument("--no-lane", action="store_true",
-                    help="disable the sorted Pallas slab-gather "
-                         "kernel (ops.slab_interp) and use the XLA "
-                         "row-gather tables instead")
     ap.add_argument("--fp32", action="store_true", default=True,
                     help="float32 compute mode (positions/quantities/"
-                         "met axes; time stays float64) — the TPU "
-                         "fast path (default; see --f64)")
+                         "met axes; time stays float64; default, see "
+                         "--f64)")
     ap.add_argument("--f64", dest="fp32", action="store_false",
                     help="float64 compute mode (reference parity)")
     ap.add_argument("--phys", default=os.environ.get("BENCH_PHYS",
@@ -82,26 +78,12 @@ def main():
     import jax
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    # Persistent compilation cache: the pipeline graph is large (cold
-    # compiles ran ~9 min); warm runs reload the XLA executable.
-    cache_dir = os.environ.get("JAX_COMPILATION_CACHE_DIR",
-                               os.path.expanduser("~/.cache/jax_mptrac"))
-    try:
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    except Exception:
-        pass
+    from mptrac_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     import jax.numpy as jnp
 
     if args.dd:
         return bench_dd(args)
-
-    if not args.exact and args.fp32 and not args.no_lane:
-        # round the ensemble UP to a chunk multiple: the fused RK
-        # kernel's inputs are then zero-copy views (no padded copies)
-        chunk = 1 << 21
-        args.n_parcels = -(-args.n_parcels // chunk) * chunk
 
     import __graft_entry__ as g
     from mptrac_tpu.physics import pipeline
@@ -148,45 +130,26 @@ def run_flagship(args, g, pipeline, jnp, jax, phase):
     if args.fp32:
         from mptrac_tpu.types import astype_state
         atm, cache, met01, clim = astype_state(atm, cache, met01, clim)
-    # Explicit device residency for the small constants (met, clim):
-    # on networked TPU backends merely-committed arrays can be
-    # re-staged per dispatch.  The parcel state is NOT device_put —
-    # the copy would transiently double ~10 GB at 100M parcels; it is
-    # donated into the step instead.
+    # Device residency for the small constants (met, clim).  The
+    # parcel state is NOT device_put — the copy would transiently
+    # double ~10 GB at 100M parcels; it is donated into the step
+    # instead.
     met01, clim = jax.device_put((met01, clim))
 
     pack = None
-    lane = False
     if not args.exact:
-        import functools
-
         from mptrac_tpu.ops.fast_interp import (MetPack,
                                                 build_advect_pack,
                                                 build_met_pack)
         if args.pack8:
             pack = MetPack(w64=jax.jit(build_advect_pack)(met01))
         else:
-            lane = not args.no_lane and args.fp32
-            if lane:
-                # fused-RK per-cell tables (ops.rk_fused): built
-                # un-jitted (host-side axis introspection)
-                pack = build_met_pack(met01, cell=True)
-            else:
-                pack = jax.jit(build_met_pack)(met01)
+            pack = jax.jit(build_met_pack)(met01)
         jax.block_until_ready(jax.tree.leaves(pack))
-        phase("met pack built" + (" (cell tables)" if lane else ""))
-
-    # The slab kernel needs spatially sorted parcels (reference
-    # module_sort, c:5699); re-sorted once per timed block (~ SORT_DT)
-    sort_fn = None
-    if lane:
-        from mptrac_tpu.ops.sort import module_sort
-        sort_fn = jax.jit(module_sort, donate_argnums=(1, 2))
+        phase("met pack built")
 
     def fetch(a, c):
-        # Force full execution: block_until_ready alone does not drain
-        # the pipeline on remote-attached TPU backends.
-        return float(jnp.sum(a.p[:128])) + float(c.rng_ctr)
+        jax.block_until_ready((a, c))
 
     if args.scan > 1:
         # donate atm/cache so the 100M-parcel state is updated in
@@ -216,15 +179,7 @@ def run_flagship(args, g, pipeline, jnp, jax, phase):
                 return scan(met01, a, c, ts, pack)
             return scan(met01, a, c, ts)
 
-        # Adaptive re-sorting: the slab kernel tracks the fraction of
-        # parcels served from sorted locality; only re-sort (expensive
-        # column permutes) when it dips.  Coherent drift is followed
-        # by the kernel's per-call anchors, so this is rare.
-        sort_thresh = float(os.environ.get("BENCH_SORT_THRESH",
-                                           "0.995"))
         t_compile0 = time.time()
-        if sort_fn is not None:
-            atm, cache = sort_fn(met01, atm, cache)
         a, c = step_block(atm, cache, 0)
         fetch(a, c)
         # second warmup block: the first post-compile execution pays
@@ -235,23 +190,14 @@ def run_flagship(args, g, pipeline, jnp, jax, phase):
         phase("compile + warmup (scan path)")
         nblocks = max(1, args.steps // k)
         block_t = []
-        nsorts = 0
         for b in range(nblocks):
             tb = time.time()
-            if (sort_fn is not None
-                    and float(c.served_min) < sort_thresh):
-                a, c = sort_fn(met01, a, c)
-                nsorts += 1
             a, c = step_block(a, c, (b + 2) * k)
             fetch(a, c)
             block_t.append(time.time() - tb)
         dt = sum(block_t)
-        served = (float(c.served_min) if sort_fn is not None
-                  else None)
         phase(f"timed {nblocks} blocks x {k} steps: "
-              + " ".join(f"{x:.2f}s" for x in block_t)
-              + (f" (resorts={nsorts}, served_min={served:.4f})"
-                 if served is not None else ""))
+              + " ".join(f"{x:.2f}s" for x in block_t))
         rate = args.n_parcels * nblocks * k / dt
     else:
         step = jax.jit(
@@ -259,16 +205,12 @@ def run_flagship(args, g, pipeline, jnp, jax, phase):
                 ctl, clim, m, a, c, t, pack=p))
 
         # Warmup / compile
-        if sort_fn is not None:
-            atm, cache = sort_fn(met01, atm, cache)
         t = jnp.asarray(ctl.dt_mod, jnp.float64)
         a, c = step(met01, atm, cache, t, pack)
         fetch(a, c)
 
         t0 = time.time()
         for i in range(args.steps):
-            if sort_fn is not None and i % 10 == 0:
-                a, c = sort_fn(met01, a, c)
             t = jnp.asarray((i + 2) * ctl.dt_mod, jnp.float64)
             a, c = step(met01, a, c, t, pack)
         fetch(a, c)
@@ -288,9 +230,6 @@ def run_flagship(args, g, pipeline, jnp, jax, phase):
         # compile-diet tracking (VERDICT r4 item 9): trace+lower+
         # compile + 2 warmup blocks, wall seconds
         result["compile_warmup_s"] = round(compile_warmup_s, 1)
-        if sort_fn is not None:
-            result["resorts"] = nsorts
-            result["served_min"] = round(served, 4)
     if args.phys != "base":
         result["metric"] += f"_{args.phys}"
     print(json.dumps(result))

@@ -5,7 +5,7 @@
  * run_timestep / write_atm / free — /root/reference/src/mptrac.h and
  * the Fortran wrapper src/mptrac_fortran.f90).  The implementation
  * embeds CPython and drives mptrac_tpu.capi; simulations execute on
- * the JAX backend (TPU when available).
+ * the JAX backend (the GPU when available).
  *
  * Usage:
  *   mptrac_c_start();

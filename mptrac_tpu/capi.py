@@ -2,7 +2,7 @@
 
 The C shim embeds the interpreter and calls these module-level
 functions with plain scalars/strings; simulation state lives in a
-handle registry here.  This is the TPU-native analog of the reference
+handle registry here.  This is the analog of the reference
 Fortran wrapper (/root/reference/src/mptrac_fortran.f90:123-807),
 which exposes the 14 ``mptrac_*`` library calls to foreign code.
 """
@@ -12,13 +12,6 @@ from __future__ import annotations
 import itertools
 import os
 from typing import Dict, Optional
-
-# Embedded interpreters skip sitecustomize-driven platform setup;
-# honor JAX_PLATFORMS explicitly so hosts can force e.g. cpu.
-if os.environ.get("JAX_PLATFORMS"):
-    import jax
-
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
 
 _handles: Dict[int, object] = {}
 _ids = itertools.count(1)

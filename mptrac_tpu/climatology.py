@@ -15,6 +15,7 @@ from __future__ import annotations
 import os
 from typing import Optional
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -189,20 +190,23 @@ def clim_tropo(clim: Clim, t, lat):
         la0 = take_small(clim.tropo_lat, ilat)
         la1 = take_small(clim.tropo_lat, ilat + 1)
         wlat = (lat - la0) / (la1 - la0)
-        # Gather-free corner lookups (an XLA gather costs ~15 ms at
-        # 2M parcels).  Separable one-hot selection: the month axis
-        # rides a [C, 12] @ [12, 73] matmul (exact — one nonzero per
-        # row), the lat axis a fused masked reduce over the resulting
-        # row.  Chunked: the [C, 73] intermediates would be tens of
-        # GB at 100M parcels.
+        # Gather-free corner lookups.  Separable one-hot selection:
+        # the month axis rides a [C, 12] @ [12, 73] matmul, the lat
+        # axis a fused masked reduce over the resulting row.  The
+        # matmul is exact (one nonzero per row) only at full f32
+        # precision: HIGHEST keeps a GPU from running it in TF32.
+        # Chunked: the [C, 73] intermediates would be tens of GB at
+        # 100M parcels.
         nt, nl = clim.tropo.shape
         jt = jnp.arange(nt, dtype=jnp.int32)
         jl = jnp.arange(nl, dtype=jnp.int32)
         tdt = clim.tropo.dtype
         oh_t0 = (isec[..., None] == jt).astype(tdt)     # [C, nt]
         oh_t1 = (isec[..., None] == jt - 1).astype(tdt)
-        r0 = oh_t0 @ clim.tropo                         # [C, nl]
-        r1 = oh_t1 @ clim.tropo
+        r0 = jnp.matmul(oh_t0, clim.tropo,
+                        precision=jax.lax.Precision.HIGHEST)  # [C, nl]
+        r1 = jnp.matmul(oh_t1, clim.tropo,
+                        precision=jax.lax.Precision.HIGHEST)
         ml0 = ilat[..., None] == jl                     # [C, nl]
         ml1 = ilat[..., None] == jl - 1
         p00 = jnp.sum(jnp.where(ml0, r0, 0), axis=-1)

@@ -1,6 +1,6 @@
 """Run configuration (control parameters).
 
-TPU-native rebuild of the MPTRAC control system (reference
+JAX rebuild of the MPTRAC control system (reference
 ``scan_ctl`` /root/reference/src/mptrac.c:12110-12182 and
 ``mptrac_read_ctl`` c:6466-7436).  Control files use the same
 ``KEY = VALUE`` text format (``KEY[i]`` / ``KEY[*]`` array syntax,
@@ -310,7 +310,7 @@ class Ctl:
 
     # Sorting
     sort_dt: float = -999.0
-    #: TPU fast path: packed-gather f32 interpolation tables
+    #: fast path: packed-gather f32 interpolation tables
     #: (framework extension; 0 = exact reference-parity arithmetic)
     tpu_fast: int = 0
 
@@ -645,6 +645,10 @@ def read_ctl(filename: Optional[str], args: Sequence[str] = ()) -> Ctl:
     kw["met_mpi_share"] = s.scan_int("MET_MPI_SHARE", -1, "0")
     kw["sort_dt"] = s.scan_float("SORT_DT", -1, "-999")
     kw["tpu_fast"] = s.scan_int("TPU_FAST", -1, "0")
+    if kw["tpu_fast"] not in (0, 1):
+        raise ValueError(
+            "Set TPU_FAST to 0 (exact) or 1 (packed tables)! Value 2 "
+            "selected the fused RK kernel, which has been removed.")
     kw["isosurf"] = s.scan_int("ISOSURF", -1, "0")
     kw["balloon"] = s.scan_str("BALLOON", -1, "-")
     kw["rng_type"] = s.scan_int("RNG_TYPE", -1, "1")

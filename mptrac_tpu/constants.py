@@ -1,6 +1,6 @@
 """Physical constants and default capacities.
 
-TPU-native rebuild of the constants in the MPTRAC reference
+JAX rebuild of the constants in the MPTRAC reference
 (/root/reference/src/mptrac.h:250-424).  Values are the standard
 physical constants used by the reference so that numerical output is
 comparable; they are plain Python floats (static at trace time).

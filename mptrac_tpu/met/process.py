@@ -434,7 +434,7 @@ def _profile_operator(z, z2, spline: bool):
     spline because its second derivatives solve a fixed tridiagonal
     system (sigma = T^-1 D y).  Folding that into one dense operator
     turns the per-column resampling of a whole met grid into a single
-    matmul — BLAS on host, MXU-shaped on TPU."""
+    matmul."""
     key = (z.tobytes(), z2.tobytes(), spline)
     A = _PROFILE_OPS.get(key)
     if A is not None:

@@ -2,11 +2,9 @@
 
 The reference's inner loop gathers u, v, w from met0 and met1
 separately — 48 scalar gathers per RK node (8 corners x 3 fields x 2
-snapshots).  On TPU, gather throughput is dominated by the number of
-rows fetched, not row width; packing the six wind components into one
-row (``[u0 v0 w0 u1 v1 w1 0 0]``, 32 bytes, lane-aligned) turns those
-48 gathers into 8 wide-row gathers per node — ~6x fewer HBM
-transactions on the hot path.
+snapshots).  Packing everything one parcel needs at a grid location
+into one table row turns those into a single wide-row gather per node
+(``build_advect_pack64``).
 
 Interpolation arithmetic runs in float32 (the met fields are float32;
 the reference also loses f32 information at the load), while positions
@@ -25,35 +23,21 @@ from mptrac_tpu.types import Met
 
 
 class MetPack(NamedTuple):
-    """Precomputed wide-row gather tables for one met snapshot pair.
-
-    XLA's TPU gather costs ~7 ns per offset independent of row width
-    up to 128 lanes (measured on v5e), so the fast path packs
-    everything a module needs at one grid location into one row:
+    """Precomputed wide-row gather tables for one met snapshot pair:
 
     - ``w64``:  [nx*ny*npl, 64] — 8 corners x (u0,v0,w0,u1,v1,w1) in
       lanes 0-47 plus 8 corners x (t0,t1) in lanes 48-63.  One offset
-      per parcel per RK stage (build_advect_pack64); or the legacy
-      8-wide table (build_advect_pack, 8 offsets).
+      per parcel per RK stage (build_advect_pack64); or the 8-wide
+      table (build_advect_pack, 8 offsets).
     - ``sfc``:  [nx*ny, 128] — 16 surface fields x 4 corners x 2
       snapshots (build_sfc_pack); one offset per parcel serves every
       2-D interpolation of a module.
-    - ``packT``/``sfcT``: the transposed tables of the sorted Pallas
-      slab-gather kernel (ops.slab_interp) — the fastest path, used
-      when parcels are kept sorted (SORT_DT; TPU_FAST >= 2).
 
-    Any entry may be None; modules fall back to the exact
+    Either entry may be None; modules fall back to the exact
     (reference-parity) interpolation path.
     """
     w64: Optional[jnp.ndarray] = None
     sfc: Optional[jnp.ndarray] = None
-    packT: Optional[jnp.ndarray] = None
-    sfcT: Optional[jnp.ndarray] = None
-    pack64: Optional[jnp.ndarray] = None
-    #: per-cell fused-RK tables (ops.rk_fused) — the fastest path:
-    #: one Pallas pass per step serves every RK stage + meso sigma + T
-    cell: Optional[object] = None
-
 
 
 #: parcel-chunk size bounding gather intermediates: XLA materializes
@@ -90,34 +74,12 @@ SFC_FIELDS = ("ps", "pbl", "ts", "zs", "cape", "cin", "pel", "plcl",
               "ess", "nss", "shf", "sst", "pt", "tt", "zt", "h2ot")
 
 
-def build_met_pack(met01: Met, wind: bool = True, sfc: bool = True,
-                   lane: bool = False, cell: bool = False) -> MetPack:
+def build_met_pack(met01: Met) -> MetPack:
     """Build all gather tables for a met pair (once per met interval,
     amortized over the steps in between — replaces the reference's
-    per-parcel cached-index reuse, mptrac.h:964).
-
-    ``cell=True`` builds the per-cell fused-RK tables (ops.rk_fused;
-    130 MB at a 1-degree/61-level grid vs 2.1 GB for the 64-wide
-    tables) plus the surface slab table — the production path for
-    sorted parcels.  Must be called OUTSIDE jit (host-side axis
-    introspection).  ``lane=True`` builds the round-4 transposed
-    slab-kernel tables (ops.slab_interp) instead."""
-    if cell:
-        from mptrac_tpu.ops import rk_fused, slab_interp
-        return MetPack(
-            cell=rk_fused.build_cell_pack(met01) if wind else None,
-            sfcT=slab_interp.build_sfcT(met01) if sfc else None)
-    if lane:
-        from mptrac_tpu.ops import slab_interp
-        packT = slab_interp.build_packT(met01) if wind else None
-        return MetPack(
-            packT=packT,
-            sfcT=slab_interp.build_sfcT(met01) if sfc else None,
-            pack64=(slab_interp.build_pack64(packT)
-                    if wind else None))
-    return MetPack(
-        w64=build_advect_pack64(met01) if wind else None,
-        sfc=build_sfc_pack(met01) if sfc else None)
+    per-parcel cached-index reuse, mptrac.h:964)."""
+    return MetPack(w64=build_advect_pack64(met01),
+                   sfc=build_sfc_pack(met01))
 
 
 def build_sfc_pack(met01: Met) -> jnp.ndarray:
@@ -239,14 +201,11 @@ def build_advect_pack(met01: Met) -> jnp.ndarray:
 def build_advect_pack64(met01: Met) -> jnp.ndarray:
     """Corner-complete packed wind table [nx*ny*npl, 64] float32.
 
-    Measured on TPU v5e, XLA's gather cost is per-offset: rows of
-    width 1 and width 64 cost the same (~7 ns/offset at 2M offsets),
-    so packing the full 2x2x2 corner block x (u0,v0,w0,u1,v1,w1) into
-    one 64-lane row turns the 8-corner gather (8 offsets/parcel,
-    ~235 ms/RK stage at 2M parcels) into a single-offset gather
-    (~15 ms).  Costs 64x the base field memory (1 GB for a 1-degree
-    global grid with 61 levels) — use ``build_advect_pack`` (8-wide,
-    8 offsets) when HBM is tight.
+    Packing the full 2x2x2 corner block x (u0,v0,w0,u1,v1,w1) into one
+    64-lane row turns the 8-corner gather (8 offsets/parcel) into a
+    single-offset gather.  Costs 64x the base field memory (1 GB for a
+    1-degree global grid with 61 levels) — use ``build_advect_pack``
+    (8-wide, 8 offsets) when device memory is tight.
 
     Lane layout: lane = corner*6 + comp, corner order (dx,dy,dz) =
     (0,0,0),(0,0,1),(0,1,0),(0,1,1),(1,0,0),(1,0,1),(1,1,0),(1,1,1),

@@ -1,6 +1,6 @@
 """4-D meteo interpolation core — the hot inner loop.
 
-Vectorized TPU-native rebuild of the reference interpolation stack
+Vectorized rebuild of the reference interpolation stack
 (/root/reference/src/mptrac.c): ``locate_reg`` c:3559, ``locate_irr``
 c:3495, ``intpol_check_lon_lat`` c:2755, ``intpol_check_cartesian``
 c:2783, ``intpol_met_space_3d`` c:2985, ``intpol_met_space_2d`` c:3048,
@@ -51,10 +51,9 @@ def locate_irr(xx: jnp.ndarray, x: jnp.ndarray) -> jnp.ndarray:
     descending), clamped at the ends.
 
     Implemented as a broadcast compare-and-count instead of
-    ``jnp.searchsorted``: on TPU, searchsorted lowers to a serial
-    ``while`` loop (~100 ms per call at 2M parcels), while the
-    compare-sum fuses into one VPU pass over the short axis (met
-    vertical/lat axes are <=1444 entries).
+    ``jnp.searchsorted``, which lowers to a ``while`` loop: the
+    compare-sum fuses into one elementwise pass over the short axis
+    (met vertical/lat axes are <=1444 entries).
     """
     n = xx.shape[0]
     asc = xx[1] > xx[0]
@@ -68,12 +67,10 @@ def locate_irr(xx: jnp.ndarray, x: jnp.ndarray) -> jnp.ndarray:
 
 
 def take_small(xx: jnp.ndarray, i: jnp.ndarray) -> jnp.ndarray:
-    """Gather-free lookup ``xx[i]`` for a short axis table.
-
-    On TPU an XLA gather costs ~7 ns per offset regardless of table
-    size (~15 ms for 2M parcels), so axis/weight lookups by gather
-    dominate the step.  A masked one-hot reduce over the short axis
-    fuses into a single VPU pass (~1-3 ms at 2M x 61..360)."""
+    """Gather-free lookup ``xx[i]`` for a short axis table: a masked
+    one-hot reduce over the short axis, which fuses into the
+    surrounding elementwise pass instead of issuing one gather per
+    parcel."""
     n = xx.shape[0]
     j = jnp.arange(n, dtype=jnp.int32)
     return jnp.sum(jnp.where(i[..., None] == j, xx, 0), axis=-1)

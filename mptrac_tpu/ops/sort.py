@@ -1,23 +1,11 @@
 """Particle sorting for memory locality (reference module_sort,
 /root/reference/src/mptrac.c:5699-5811): periodically argsort all
 particle arrays by met grid-box index so nearby parcels gather from
-nearby met columns.  Replaces GSL/Thrust sort with XLA's radix
-argsort.
-
-Cost model on TPU v5e at 50M parcels: the argsort itself is cheap
-(0.16 s); each column permute costs ~0.64 s (XLA gather is ~13 ns per
-offset), so a full-state sort is ~8 s.  The production driver
-therefore re-sorts ADAPTIVELY: the slab-interp kernel tracks the
-fraction of parcels it could serve from sorted locality
-(cache.served_min), and the driver only re-sorts when that dips below
-threshold.  Spatial coherence means that is rare — parcel groups
-drift coherently (the kernel's per-call anchors follow them) and only
-DIFFERENTIAL motion (shear, diffusion ~0.01 cell/step) degrades
-locality."""
+nearby met columns.  Replaces GSL/Thrust sort with XLA's argsort; every
+per-parcel column is then permuted by one gather."""
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 
 from mptrac_tpu.ops import interp
@@ -27,13 +15,11 @@ from mptrac_tpu.types import Atm, Cache, Met
 def sort_key(met: Met, atm: Atm) -> jnp.ndarray:
     """Met grid-box index per parcel, Z-MAJOR: (iz*nx + ix)*ny + iy.
 
-    The reference sorts x-major (c:5770-5776); the TPU rebuild sorts
+    The reference sorts x-major (c:5770-5776); this rebuild sorts
     LEVEL-major instead: parcels on one pressure level drift rigidly
     (vertical cell-crossing between sorts is ~0), so vertical wind
-    shear does not tear sorted groups apart — the fused RK kernel's
-    locality survives ~10x more steps per sort.  Uses the SAME
-    locator as the interpolation kernels so the sorted order matches
-    the kernel's lane order exactly."""
+    shear does not tear sorted groups apart.  Uses the same locator as
+    the interpolation so the key matches the cells it gathers."""
     lons = met.lon[0] if met.lon.ndim == 2 else met.lon
     lats = met.lat[0] if met.lat.ndim == 2 else met.lat
     loc = interp.locate_3d(met, atm.lon, atm.lat, atm.p)
@@ -43,55 +29,10 @@ def sort_key(met: Met, atm: Atm) -> jnp.ndarray:
     return jnp.where(atm.mask, key, jnp.iinfo(jnp.int32).max)
 
 
-#: max |perm - iota| for which the banded permute kernel is used; a
-#: wider permutation (e.g. the FIRST sort of a randomly ordered
-#: ensemble) falls back to plain gathers — the banded kernel cannot
-#: serve it and would silently zero state (round-4 advisor finding)
-BAND_MAX = 4096
-
-#: above this ensemble size the stacked-table banded kernel's
-#: temporaries (full [8, n] table copy + padded [nch, 16, L] output)
-#: exceed HBM at 100M parcels; plain per-column takes run in bounded
-#: memory because the donated input buffers are reused column by
-#: column
-PLAIN_N = 1 << 26
-
-
-def _take_f32_pairs(cols, perm):
-    """Permute the f32 state columns.
-
-    On TPU, RE-sorts of drifted parcels produce locally banded
-    permutations; the slab kernel's banded-gather mode then serves 8
-    columns per gather offset (ops.slab_interp.permute_f32_cols),
-    ~8x cheaper than per-column gathers.  A cheap bandedness check
-    guards it: non-banded permutations (initial sort, resume) take
-    the plain-gather branch, which is correct for ANY permutation."""
-    import jax as _jax
-    n = perm.shape[0]
-    # the banded kernel only pays off (and is only well-conditioned)
-    # for large ensembles with a band far narrower than n
-    if (_jax.default_backend() != "tpu" or n < 16 * BAND_MAX
-            or n >= PLAIN_N):
-        return [jnp.take(c, perm) for c in cols]
-    from mptrac_tpu.ops.slab_interp import permute_f32_cols
-    band = jnp.max(jnp.abs(perm - jnp.arange(n, dtype=perm.dtype)))
-
-    def banded(cols_t):
-        out = []
-        for i in range(0, len(cols_t), 8):
-            out += permute_f32_cols(list(cols_t[i:i + 8]), perm)
-        return tuple(out)
-
-    def plain(cols_t):
-        return tuple(jnp.take(c, perm) for c in cols_t)
-
-    return list(jax.lax.cond(band <= BAND_MAX, banded, plain,
-                             tuple(cols)))
-
-
 def module_sort(met: Met, atm: Atm, cache: Cache):
     """Stable argsort by grid cell; permutes atm and the per-particle
-    cache arrays consistently and resets the served diagnostic."""
+    cache arrays consistently.  Every column keeps its dtype: parcel
+    time stays float64 in float32 compute mode."""
     perm = jnp.argsort(sort_key(met, atm), stable=True)
 
     def take(x):
@@ -100,48 +41,11 @@ def module_sort(met: Met, atm: Atm, cache: Cache):
     # (atm.mask is the prefix arange < np; masked parcels sort to the
     # end, so the permuted state keeps a consistent prefix mask)
     iso_per_parcel = cache.iso_var.shape[0] == atm.lon.shape[0]
-    if atm.lon.dtype == jnp.float32 and cache.dt.dtype == jnp.float32:
-        # time stays f64 and is permuted by a plain gather: a hi/lo
-        # f32 split is NOT exact once |time| needs >47 significand
-        # bits (~4 years of seconds at sub-ms resolution; round-4
-        # advisor finding), and one extra f64 gather per sort is cheap
-        time2 = take(atm.time)
-        cols = [atm.lon, atm.lat, atm.p, cache.dt,
-                cache.uvwp[0], cache.uvwp[1], cache.uvwp[2]]
-        qnames = [k for k in atm.q
-                  if atm.q[k].dtype == jnp.float32]
-        cols += [atm.q[k] for k in qnames]
-        if iso_per_parcel and cache.iso_var.dtype == jnp.float32:
-            cols.append(cache.iso_var)
-            iso_packed = True
-        else:
-            iso_packed = False
-        out = _take_f32_pairs(cols, perm)
-        lon, lat, p, dtc, u0, v0, w0 = out[:7]
-        qvals = out[7:7 + len(qnames)]
-        q = dict(atm.q)
-        for k, v in zip(qnames, qvals):
-            q[k] = v
-        for k in q:
-            if k not in qnames:
-                q[k] = take(atm.q[k])
-        atm2 = atm.replace(time=time2, p=p, lon=lon, lat=lat, q=q)
-        iso2 = (out[7 + len(qnames)] if iso_packed
-                else (take(cache.iso_var) if iso_per_parcel
-                      else cache.iso_var))
-        cache2 = cache.replace(
-            uvwp=jnp.stack([u0, v0, w0]),
-            dt=dtc.astype(cache.dt.dtype), iso_var=iso2)
-    else:
-        atm2 = atm.replace(
-            time=take(atm.time), p=take(atm.p), lon=take(atm.lon),
-            lat=take(atm.lat),
-            q={k: take(v) for k, v in atm.q.items()})
-        cache2 = cache.replace(
-            uvwp=jnp.take(cache.uvwp, perm, axis=1),
-            dt=take(cache.dt),
-            iso_var=(take(cache.iso_var) if iso_per_parcel
-                     else cache.iso_var))
-    served = (jnp.asarray(1.0, jnp.float32)
-              if cache.served_min is not None else None)
-    return atm2, cache2.replace(served_min=served)
+    atm2 = atm.replace(
+        time=take(atm.time), p=take(atm.p), lon=take(atm.lon),
+        lat=take(atm.lat), q={k: take(v) for k, v in atm.q.items()})
+    cache2 = cache.replace(
+        uvwp=jnp.take(cache.uvwp, perm, axis=1), dt=take(cache.dt),
+        iso_var=(take(cache.iso_var) if iso_per_parcel
+                 else cache.iso_var))
+    return atm2, cache2

@@ -3,8 +3,7 @@
 Vectorized jnp equivalents of the MPTRAC reference macros
 (/root/reference/src/mptrac.h:600-2100).  All functions are pure,
 shape-polymorphic, and dtype-preserving, so they trace cleanly under
-``jax.jit``/``vmap`` and fuse into surrounding element-wise work on the
-TPU VPU.
+``jax.jit``/``vmap`` and fuse into surrounding element-wise work.
 
 Units follow the reference: pressure [hPa], altitude [km],
 temperature [K], mixing ratios [ppv].

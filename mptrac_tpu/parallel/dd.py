@@ -1,6 +1,6 @@
 """Spatial domain decomposition with parcel migration.
 
-TPU-native rebuild of the reference's experimental MPI domain
+JAX rebuild of the reference's experimental MPI domain
 decomposition (SURVEY §2.9/§3.4; reference /root/reference/src/mptrac.c:
 dd_init c:2193, dd_assign_subdomains c:1918, dd_sort c:2384,
 dd_communicate_particles c:2072 with MPI_Alltoallv, halo reads
@@ -33,10 +33,7 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-try:
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from mptrac_tpu.config import Ctl
@@ -80,7 +77,7 @@ class DDGrid:
         ix = jnp.floor((lon_w - self.lon0) / self.dlon).astype(jnp.int32)
         ix = jnp.clip(ix, 0, self.nx_glob - 1)
         sx = jnp.clip(ix // base_x, 0, self.n_zonal - 1)
-        # compare-count instead of searchsorted (serial while on TPU)
+        # compare-count over the short latitude axis
         iy = jnp.sum(lat_axis <= lat[..., None], axis=-1).astype(
             jnp.int32) - 1
         iy = jnp.clip(iy, 0, self.ny_glob - 1)
@@ -267,8 +264,7 @@ def scatter_parcels(dd: DDGrid, atm: Atm, cap: int, lat_axis
         np=jnp.asarray(counts))
     cache = Cache.zeros(dd.ndev * cap)
     # per-device scalar fields get a [ndev] leading axis
-    cache = cache.replace(rng_ctr=jnp.zeros(dd.ndev, jnp.uint64),
-                          served_min=jnp.ones(dd.ndev, jnp.float32))
+    cache = cache.replace(rng_ctr=jnp.zeros(dd.ndev, jnp.uint64))
     return out, cache
 
 
@@ -417,12 +413,8 @@ def make_dd_step(ctl: Ctl, clim: Clim, dd: DDGrid, mesh: Mesh, cap: int,
     out_specs = (_atm_spec(axis, qnames), _cache_spec(axis), P(axis),
                  P(axis))
 
-    try:
-        smapped = shard_map(local_step, mesh=mesh, in_specs=in_specs,
-                            out_specs=out_specs, check_vma=False)
-    except TypeError:  # older jax uses check_rep
-        smapped = shard_map(local_step, mesh=mesh, in_specs=in_specs,
-                            out_specs=out_specs, check_rep=False)
+    smapped = shard_map(local_step, mesh=mesh, in_specs=in_specs,
+                        out_specs=out_specs, check_vma=False)
     return jax.jit(smapped)
 
 

@@ -1,11 +1,11 @@
 """Multi-process (multi-host) runtime for domain decomposition.
 
 The reference scales across nodes with MPI (dd_init c:2193,
-MPI_Alltoallv exchange c:2072-2193); the TPU-native equivalent is
-JAX's multi-controller runtime: every process calls
+MPI_Alltoallv exchange c:2072-2193); the JAX equivalent is JAX's
+multi-controller runtime: every process calls
 :func:`init_distributed`, after which ``jax.devices()`` spans all
 processes and the existing ``shard_map`` DD step (parallel.dd) runs
-unchanged — XLA lowers ``lax.all_to_all`` onto ICI/DCN collectives
+unchanged — XLA lowers ``lax.all_to_all`` onto NCCL collectives
 between processes instead of intra-process transfers.
 
 Each process:

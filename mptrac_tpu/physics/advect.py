@@ -18,43 +18,12 @@ from mptrac_tpu.types import Atm, Cache, Met
 
 
 def module_advect(ctl: Ctl, cache: Cache, met01: Met, atm: Atm,
-                  pack=None, slab=None):
-    """Returns (atm, cache) — cache carries the slab-kernel served
-    diagnostic (cache.served_min) when the slab path is active."""
+                  pack=None) -> Atm:
+    """Advance parcel positions by one model step (reference
+    module_advect, c:3598)."""
     if ctl.advect_vert_coord in (0, 2):
-        return _advect_plev(ctl, cache, met01, atm, pack, slab)
-    return _advect_zeta(ctl, cache, met01, atm), cache
-
-
-def module_advect_fused(ctl: Ctl, cache: Cache, met01: Met, atm: Atm,
-                        cell):
-    """Fused advect via the single-pass RK kernel (ops.rk_fused):
-    positions advance AND the final-position mesoscale subgrid sigma
-    and temperature come out of the same kernel invocation.
-
-    Returns (atm, cache, (su, sv, sw), T).  sigma/T are evaluated at
-    the post-advect position (the unfused pipeline evaluates them
-    after the turbulent-diffusion displacement, ~100 m later — far
-    below one met cell, see docs/performance.md).  fp32 only; parcels
-    must be ~sorted (module_sort)."""
-    from mptrac_tpu.ops import rk_fused
-
-    dt = cache.dt
-    active = (dt != 0.0) & atm.mask
-    wt0 = interp.time_weight(met01, atm.time).astype(jnp.float32)
-    (nlon, nlat, np_, su, sv, sw, T), served = rk_fused.advect_all(
-        cell, met01, ctl.advect, atm.lon, atm.lat, atm.p,
-        dt.astype(jnp.float32), wt0)
-    if cache.served_min is not None:
-        cache = cache.replace(served_min=jnp.minimum(
-            cache.served_min, served.astype(jnp.float32)))
-    new_time = atm.time + dt
-    atm = atm.replace(
-        time=jnp.where(active, new_time, atm.time),
-        lon=jnp.where(active, nlon, atm.lon),
-        lat=jnp.where(active, nlat, atm.lat),
-        p=jnp.where(active, np_, atm.p))
-    return atm, cache, (su, sv, sw), T
+        return _advect_plev(ctl, cache, met01, atm, pack)
+    return _advect_zeta(ctl, cache, met01, atm)
 
 
 def _rk_weight(ctl: Ctl, i: int) -> float:
@@ -66,14 +35,13 @@ def _rk_weight(ctl: Ctl, i: int) -> float:
 
 
 def _advect_plev(ctl: Ctl, cache: Cache, met01: Met, atm: Atm,
-                 pack=None, slab=None):
+                 pack=None) -> Atm:
     """Kinematic advection with omega on pressure levels
     (advect_vert_coord 0) or on model levels (2).
 
     When a packed wind table is supplied (ops.fast_interp), the
     per-node interpolation uses one wide-row gather in float32 instead
-    of 48 scalar gathers in float64.  ``packT`` selects the sorted
-    Pallas slab-gather kernel instead (ops.slab_interp)."""
+    of 48 scalar gathers in float64."""
     cart = met01.coord_type != 0
     dt = cache.dt
     active = (dt != 0.0) & atm.mask
@@ -90,17 +58,7 @@ def _advect_plev(ctl: Ctl, cache: Cache, met01: Met, atm: Atm,
                  atm.lat + dy2coord(dts * v, cart),
                  atm.p + dts * w)
         tm = atm.time + dts
-        if (ctl.advect_vert_coord == 0 and slab is not None):
-            # Sorted slab-gather kernel (ops.slab_interp): the
-            # production TPU hot path
-            from mptrac_tpu.ops import slab_interp
-            loc = interp.locate_3d(met01, x[0], x[1], x[2])
-            u, v, w, _, srv = slab_interp.uvwt_from_loc(slab, met01,
-                                                        tm, loc)
-            if cache.served_min is not None:
-                cache = cache.replace(served_min=jnp.minimum(
-                    cache.served_min, srv.astype(jnp.float32)))
-        elif ctl.advect_vert_coord == 0 and pack is not None:
+        if ctl.advect_vert_coord == 0 and pack is not None:
             from mptrac_tpu.ops.fast_interp import (interp_uvw_packed,
                                                     interp_uvw_packed64)
             loc = interp.locate_3d(met01, x[0], x[1], x[2])
@@ -134,7 +92,7 @@ def _advect_plev(ctl: Ctl, cache: Cache, met01: Met, atm: Atm,
         time=jnp.where(active, new_time, atm.time),
         lon=jnp.where(active, new_lon, atm.lon),
         lat=jnp.where(active, new_lat, atm.lat),
-        p=jnp.where(active, new_p, atm.p)), cache
+        p=jnp.where(active, new_p, atm.p))
 
 
 def _advect_zeta(ctl: Ctl, cache: Cache, met01: Met, atm: Atm) -> Atm:

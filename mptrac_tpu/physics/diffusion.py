@@ -44,7 +44,7 @@ def tropo_weight(ctl: Ctl, clim: Clim, time, lat, p, pt=None):
 
 
 def module_diff_turb(ctl: Ctl, cache: Cache, clim: Clim, met01: Met,
-                     atm: Atm, sfc=None, sfcT=None):
+                     atm: Atm, sfc=None):
     """Langevin random-walk diffusion with well-mixed vertical drift
     correction (reference c:4580-4730)."""
     n = atm.npmax
@@ -56,13 +56,7 @@ def module_diff_turb(ctl: Ctl, cache: Cache, clim: Clim, met01: Met,
     active = (dt != 0.0) & atm.mask
 
     loc = interp.locate_3d(met01, atm.lon, atm.lat, atm.p)
-    if sfcT is not None:
-        from mptrac_tpu.ops import slab_interp
-        v2 = slab_interp.sfc_from_loc(
-            slab_interp.SlabTables(sfcT=sfcT), met01, ("pbl", "ps"),
-            atm.time, loc)
-        pbl, ps = v2["pbl"], v2["ps"]
-    elif sfc is not None:
+    if sfc is not None:
         from mptrac_tpu.ops.fast_interp import interp_sfc_packed
         v2 = interp_sfc_packed(met01, sfc, ("pbl", "ps"), atm.time,
                                loc)
@@ -123,14 +117,12 @@ def module_diff_turb(ctl: Ctl, cache: Cache, clim: Clim, met01: Met,
 
 
 def module_diff_meso(ctl: Ctl, cache: Cache, met01: Met, atm: Atm,
-                     pack=None, slab=None, sig=None):
+                     pack=None):
     """Mesoscale wind fluctuations: AR(1) colored noise scaled to the
     local subgrid wind variance (reference c:4258-4335).
 
     The 16-point variance (2x2x2 cells x 2 snapshots) is accumulated in
     float32 in the reference's summation order for cross-checking.
-    ``sig`` optionally supplies precomputed (usig, vsig, wsig) from the
-    fused RK kernel (ops.rk_fused), skipping the locate + stencil here.
     """
     n = atm.npmax
     rs, ctr = module_rng3(ctl.rng_type, cache.rng_ctr, n,
@@ -145,26 +137,14 @@ def module_diff_meso(ctl: Ctl, cache: Cache, met01: Met, atm: Atm,
     w3 = met01.fields3d["w"]
     nx, ny, npl = u3.shape[-3:]
 
-    if sig is None:
-        lons = met01.lon[0] if met01.lon.ndim == 2 else met01.lon
-        lats = met01.lat[0] if met01.lat.ndim == 2 else met01.lat
-        ps = met01.p[0] if met01.p.ndim == 2 else met01.p
-        ix = interp.locate_reg(lons, atm.lon)
-        iy = interp.locate_irr(lats, atm.lat)
-        iz = interp.locate_irr(ps, atm.p)
+    lons = met01.lon[0] if met01.lon.ndim == 2 else met01.lon
+    lats = met01.lat[0] if met01.lat.ndim == 2 else met01.lat
+    ps = met01.p[0] if met01.p.ndim == 2 else met01.p
+    ix = interp.locate_reg(lons, atm.lon)
+    iy = interp.locate_irr(lats, atm.lat)
+    iz = interp.locate_irr(ps, atm.p)
 
-    if sig is not None:
-        usig, vsig, wsig = sig
-    elif slab is not None:
-        # Sorted slab-gather kernel: one VMEM window pair serves the
-        # whole 16-point stencil for a 128-parcel group
-        from mptrac_tpu.ops import slab_interp
-        base = ((ix * ny + iy) * npl + iz).astype(jnp.int32)
-        nxc = nx - 1 if met01.lon_periodic else nx
-        (usig, vsig, wsig), _ = slab_interp.meso_sigma(
-            slab, base, npl, ny * npl, nxc * ny * npl,
-            interpret=slab_interp._auto_interpret())
-    elif pack is not None and pack.shape[-1] == 64:
+    if pack is not None and pack.shape[-1] == 64:
         # The 64-wide corner row already holds all 8 corners x 2
         # snapshots: the whole 16-point stencil is ONE gather offset
         # per parcel (see build_advect_pack64).  Chunked so the

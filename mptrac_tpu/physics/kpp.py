@@ -135,7 +135,11 @@ def rate_constants(clim: Clim, t, M, p, sza, o3c, lwc):
 
 
 def _rhs(c, fix, rconst):
-    """dC/dt for one parcel: rates = k * prod(C^order); dC = S^T r."""
+    """dC/dt for one parcel: rates = k * prod(C^order); dC = S^T r.
+
+    The matrix products here and in the Rosenbrock solve run in
+    float64 (KPP state is always f64), which no GPU runs in TF32; an
+    f32 KPP path would need ``precision=HIGHEST`` on them."""
     logc = jnp.log(jnp.maximum(c, 1e-30))
     logf = jnp.log(jnp.maximum(fix, 1e-30))
     # reaction rates; integer orders

@@ -29,15 +29,13 @@ _Q3D = {"zg": "z", "t": "t", "u": "u", "v": "v", "w": "w", "pv": "pv",
 
 
 def module_meteo(ctl: Ctl, cache: Cache, clim: Clim, met01: Met,
-                 atm: Atm, pack=None, pre3d=None) -> Atm:
-    """``pre3d`` optionally supplies 3-D met values already
-    interpolated at the parcel positions by the fused RK kernel
-    (ops.rk_fused) — currently {"t": T}."""
+                 atm: Atm, pack=None) -> Atm:
+    """``pack`` optionally supplies the packed gather tables
+    (ops.fast_interp.MetPack) for temperature and surface fields."""
     names = set(ctl.qnt_name)
     if not names:
         return atm
     q = dict(atm.q)
-    pre3d = pre3d or {}
 
     from mptrac_tpu.ops.fast_interp import (MetPack, SFC_FIELDS,
                                             interp_sfc_packed,
@@ -48,17 +46,9 @@ def module_meteo(ctl: Ctl, cache: Cache, clim: Clim, met01: Met,
            and pack.w64 is not None and pack.w64.shape[-1] == 64
            else None)
     sfc = pack.sfc if pack is not None else None
-    slab = None
-    if (pack is not None and met01.lon.dtype == jnp.float32
-            and (pack.packT is not None or pack.sfcT is not None)):
-        from mptrac_tpu.ops import slab_interp
-        slab = slab_interp.SlabTables(packT=pack.packT,
-                                      sfcT=pack.sfcT,
-                                      pack64=pack.pack64)
 
     # The locate is shared by every interpolation below; skip it
-    # entirely when pre3d + the quantity list leave nothing to gather
-    # (the flagship fused path: only "t", served by the RK kernel).
+    # entirely when the quantity list leaves nothing to gather.
     _loc = [None]
 
     def loc():
@@ -70,27 +60,11 @@ def module_meteo(ctl: Ctl, cache: Cache, clim: Clim, met01: Met,
               "rhice", "theta", "tvirt", "lapse", "tdew", "tice",
               "tnat", "tsts", "zeta_d"}
 
-    # Sorted slab kernel: one kernel call serves u, v, w and T
-    slab_uvwt = None
-    if slab is not None and slab.packT is not None:
-        need_uvwt = [f for f in ("t", "u", "v", "w")
-                     if (f in names or names & deriv3)
-                     and f not in pre3d]
-        if need_uvwt:
-            from mptrac_tpu.ops.slab_interp import uvwt_from_loc
-            su, sv, sw, st, _ = uvwt_from_loc(slab, met01, atm.time,
-                                              loc())
-            slab_uvwt = {"u": su, "v": sv, "w": sw, "t": st}
-
     vals3 = {}
     for qname, fname in _Q3D.items():
         if qname in names or (qname in ("t", "u", "v", "w", "h2o")
                               and names & deriv3):
-            if fname in pre3d:
-                vals3[fname] = pre3d[fname]
-            elif slab_uvwt is not None and fname in slab_uvwt:
-                vals3[fname] = slab_uvwt[fname]
-            elif fname == "t" and w64 is not None:
+            if fname == "t" and w64 is not None:
                 vals3[fname] = interp_t_packed64(met01, w64, atm.time,
                                                  loc())
             else:
@@ -98,11 +72,7 @@ def module_meteo(ctl: Ctl, cache: Cache, clim: Clim, met01: Met,
                                                      atm.time, loc())
     sfc_names = [f for q2, f in _Q2D.items()
                  if q2 in names and f in SFC_FIELDS]
-    if slab is not None and slab.sfcT is not None and sfc_names:
-        from mptrac_tpu.ops.slab_interp import sfc_from_loc
-        sfc_vals = sfc_from_loc(slab, met01, sfc_names, atm.time,
-                                loc())
-    elif sfc is not None and sfc_names:
+    if sfc is not None and sfc_names:
         sfc_vals = interp_sfc_packed(met01, sfc, sfc_names, atm.time,
                                      loc())
     else:

@@ -2,7 +2,8 @@
 /root/reference/src/mptrac.c:5161-5335): bin parcels into a mixing
 grid, average each quantity per box, and relax every parcel toward its
 box mean.  The reference's atomic adds become XLA ``segment_sum``
-scatter-adds — deterministic and TPU-friendly."""
+scatter-adds (on a GPU these are atomic too, so the summation order,
+and with it the last bits of a box mean, can vary between runs)."""
 
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Per-timestep module pipeline.
 
-TPU-native rebuild of ``mptrac_run_timestep``
+Rebuild of ``mptrac_run_timestep``
 (/root/reference/src/mptrac.c:7545-7694): the fixed module order with
 static (trace-time) enables resolved from Ctl, so XLA compiles one
 fixed graph per configuration.  The whole step is jittable:
@@ -13,7 +13,6 @@ the driver, keeping the traced graph shape-stable.
 
 from __future__ import annotations
 
-from functools import partial
 from typing import NamedTuple
 
 import jax
@@ -50,22 +49,6 @@ def run_timestep(ctl: Ctl, clim: Clim, met01: Met, atm: Atm, cache: Cache,
         pack = MetPack(w64=pack, sfc=None)
     wpack = pack.w64 if pack is not None else None
     sfc = pack.sfc if pack is not None else None
-    # Transposed slab-kernel tables (sorted fast path): only sound in
-    # f32 compute mode (the kernel computes in f32)
-    fp32 = met01.lon.dtype == jnp.float32
-    slab = None
-    sfcT = None
-    if pack is not None and fp32 and pack.packT is not None:
-        from mptrac_tpu.ops.slab_interp import SlabTables
-        slab = SlabTables(packT=pack.packT, sfcT=pack.sfcT,
-                          pack64=pack.pack64)
-    if pack is not None and fp32:
-        sfcT = pack.sfcT
-    # Per-cell fused-RK kernel (ops.rk_fused): advect + meso sigma +
-    # meteo T in ONE Pallas pass over sorted parcels
-    cell = (pack.cell if pack is not None and fp32
-            and ctl.advect_vert_coord == 0 and ctl.advect in (1, 2, 4)
-            else None)
 
     # Set timesteps of air parcels
     with jax.named_scope("module_timesteps"):
@@ -77,17 +60,9 @@ def run_timestep(ctl: Ctl, clim: Clim, met01: Met, atm: Atm, cache: Cache,
     atm = m_position.module_position(cache, met01, atm, sfc)
 
     # Advection
-    fused_sig = None
-    fused_t = None
     if ctl.advect > 0:
         with jax.named_scope("module_advect"):
-            if cell is not None:
-                atm, cache, fused_sig, fused_t = \
-                    m_advect.module_advect_fused(ctl, cache, met01,
-                                                 atm, cell)
-            else:
-                atm, cache = m_advect.module_advect(ctl, cache, met01,
-                                                    atm, wpack, slab)
+            atm = m_advect.module_advect(ctl, cache, met01, atm, wpack)
 
     # Turbulent diffusion
     if ctl.diffusion and (
@@ -95,7 +70,7 @@ def run_timestep(ctl: Ctl, clim: Clim, met01: Met, atm: Atm, cache: Cache,
             or ctl.turb_dx_trop > 0 or ctl.turb_dz_trop > 0
             or ctl.turb_dx_strat > 0 or ctl.turb_dz_strat > 0):
         atm, cache = m_diff.module_diff_turb(ctl, cache, clim, met01,
-                                             atm, sfc, sfcT)
+                                             atm, sfc)
 
     # PBL diffusion scheme
     if ctl.diffusion and ctl.turb_pbl_scheme == 1:
@@ -105,8 +80,7 @@ def run_timestep(ctl: Ctl, clim: Clim, met01: Met, atm: Atm, cache: Cache,
     # Mesoscale diffusion
     if ctl.diffusion and (ctl.turb_mesox > 0 or ctl.turb_mesoz > 0):
         atm, cache = m_diff.module_diff_meso(ctl, cache, met01, atm,
-                                             wpack, slab,
-                                             sig=fused_sig)
+                                             wpack)
 
     # Convection
     if (ctl.conv_mix_pbl or ctl.conv_cape >= 0) and flags.do_conv:
@@ -128,9 +102,7 @@ def run_timestep(ctl: Ctl, clim: Clim, met01: Met, atm: Atm, cache: Cache,
 
     # Interpolate meteo data
     if ctl.met_dt_out > 0 and flags.do_meteo:
-        atm = m_meteo.module_meteo(
-            ctl, cache, clim, met01, atm, pack,
-            pre3d={"t": fused_t} if fused_t is not None else None)
+        atm = m_meteo.module_meteo(ctl, cache, clim, met01, atm, pack)
 
     # Boundary conditions (initial)
     bound_on = (ctl.bound_lat0 < ctl.bound_lat1
@@ -221,8 +193,8 @@ def make_scan_step(ctl: Ctl, clim: Clim, flags: StepFlags = StepFlags(),
     of model times, so one dispatch advances many timesteps.
 
     The reference dispatches every step from the host
-    (trac.c:122-160); on TPU the per-dispatch latency dominates at
-    small step costs, so the driver batches the homogeneous steps
+    (trac.c:122-160); per-dispatch latency dominates at small step
+    costs, so the driver batches the homogeneous steps
     between met swaps / output times into one on-device scan.  All
     scanned steps share the same static module gates (``flags``)."""
     @jax.jit

@@ -176,63 +176,22 @@ class Simulation:
 
     def _get_pack(self, met01):
         """Packed gather tables, rebuilt per met interval
-        (ops.fast_interp; TPU_FAST only)."""
+        (ops.fast_interp; TPU_FAST 1 only)."""
         if not self.ctl.tpu_fast:
             return None
         if self._pack_src is not met01:
-            import functools
-
             from mptrac_tpu.ops.fast_interp import build_met_pack
-            # TPU_FAST >= 2: per-cell tables for the fused RK Pallas
-            # kernel (ops.rk_fused; requires SORT_DT re-sorting).
-            # Built un-jitted (host-side axis introspection); the
-            # heavy table assembly inside is jitted.
-            cell = self.ctl.tpu_fast >= 2 and self.ctl.sort_dt > 0
             if self._pack_builder is None:
-                if cell:
-                    self._pack_builder = functools.partial(
-                        build_met_pack, cell=True)
-                else:
-                    self._pack_builder = jax.jit(build_met_pack)
+                self._pack_builder = jax.jit(build_met_pack)
             self._pack = self._pack_builder(met01)
             self._pack_src = met01
         return self._pack
-
-    #: re-sort when the fused/slab kernel's served fraction since the
-    #: last sort dips below this (adaptive locality maintenance; the
-    #: kernel stays EXACT regardless via its XLA fallback tiers —
-    #: this threshold only bounds how often the slow tiers run)
-    SORT_SERVED_THRESH = 0.995
-
-    #: below this the fused kernel has POISONED unserved parcels with
-    #: NaN (every bounded recompute cap exceeded) — abort loudly, like
-    #: the reference's hard NP-overflow abort (mptrac.c:2281)
-    SERVED_HARD_FLOOR = 0.98
-
-    def _sort_due(self) -> bool:
-        """Adaptive re-sort check driven by cache.served_min
-        (production analog of the bench loop's check; round-4 judge
-        item: the driver, not just bench.py, must act on served_min)."""
-        if self.ctl.tpu_fast < 2 or self.cache.served_min is None:
-            return False
-        served = float(self.cache.served_min)
-        if served < self.SERVED_HARD_FLOOR:
-            raise RuntimeError(
-                f"Fused-kernel served fraction {served:.4f} fell "
-                f"below the hard floor {self.SERVED_HARD_FLOOR} — "
-                "parcel locality collapsed faster than SORT_DT "
-                "re-sorts; unserved parcels are NaN-poisoned. "
-                "Decrease SORT_DT (or disable TPU_FAST>=2).")
-        return served < self.SORT_SERVED_THRESH
 
     def _sort(self, met01):
         with self.timers.timer("MODULE_SORT", "PHYSICS"):
             from mptrac_tpu.ops.sort import module_sort
             self.atm, self.cache = module_sort(met01, self.atm,
                                                self.cache)
-        if self.cache.served_min is not None:
-            self.cache = self.cache.replace(
-                served_min=jnp.ones_like(self.cache.served_min))
 
     def _event_due(self, t: float) -> bool:
         """True when step t needs host-side work besides the jitted
@@ -293,9 +252,7 @@ class Simulation:
         if first:
             self.atm, self.cache = pipeline.init_modules(
                 self.ctl, self.clim, met01, self.atm, self.cache)
-        if self.ctl.sort_dt > 0 and (
-                math.fmod(t, self.ctl.sort_dt) == 0
-                or self._sort_due()):
+        if self.ctl.sort_dt > 0 and math.fmod(t, self.ctl.sort_dt) == 0:
             self._sort(met01)
         step = self._step_fn(self._flags(t))
         with self.timers.timer("RUN_TIMESTEP", "PHYSICS", sync=None):
@@ -323,8 +280,8 @@ class Simulation:
         Homogeneous runs of steps — same static flags, same met pair,
         no interval output / sort / checkpoint due — are batched into
         one on-device ``lax.scan`` dispatch (the reference dispatches
-        every step from the host, trac.c:122-160; on TPU per-dispatch
-        latency would dominate).  ``scan=False`` forces one dispatch
+        every step from the host, trac.c:122-160; per-dispatch latency
+        would dominate).  ``scan=False`` forces one dispatch
         per step."""
         ts = [t for t in self.times()
               if not (self._resume_t is not None
@@ -354,8 +311,6 @@ class Simulation:
             if j - i >= 2:
                 with self.timers.timer("GET_MET", "INPUT"):
                     met01 = self.metbuf.get(ts[i])
-                if self._sort_due():
-                    self._sort(met01)
                 scanf = self._scan_fn(self._flags(ts[i]))
                 tvec = jnp.asarray(ts[i:j], jnp.float64)
                 with self.timers.timer("RUN_TIMESTEP", "PHYSICS",

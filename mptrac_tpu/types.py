@@ -1,6 +1,6 @@
 """Core state containers (pytrees).
 
-TPU-native rebuild of the MPTRAC data model (reference
+JAX rebuild of the MPTRAC data model (reference
 /root/reference/src/mptrac.h:2284-3832).  Differences from the
 reference, by design:
 
@@ -92,9 +92,6 @@ class Cache:
     iso_ps: jnp.ndarray        # balloon pressure track [nmax]
     iso_ts: jnp.ndarray        # balloon time track [nmax]
     iso_n: jnp.ndarray         # int32 scalar
-    served_min: jnp.ndarray = None  # f32 scalar: min slab-kernel
-    #   served fraction since the last sort (framework diagnostic;
-    #   drives adaptive re-sorting, see ops.slab_interp)
 
     @staticmethod
     def zeros(npmax: int, dtype=jnp.float64, iso_nmax: int = 1,
@@ -110,7 +107,6 @@ class Cache:
             iso_ps=jnp.zeros(iso_nmax, dtype),
             iso_ts=jnp.zeros(iso_nmax, dtype),
             iso_n=jnp.asarray(0, jnp.int32),
-            served_min=jnp.asarray(1.0, jnp.float32),
         )
 
     def replace(self, **kw) -> "Cache":
@@ -118,7 +114,7 @@ class Cache:
 
 
 _register(Cache, ["uvwp", "dt", "rng_ctr", "iso_var", "iso_ps", "iso_ts",
-                  "iso_n", "served_min"])
+                  "iso_n"])
 
 # ---------------------------------------------------------------------
 # Cache field categories — the SINGLE source of truth for every
@@ -133,7 +129,7 @@ CACHE_PARTICLE_FIELDS = ("dt", "iso_var")
 #: [k, npmax] per-particle arrays with a leading non-particle axis
 CACHE_PARTICLE2D_FIELDS = ("uvwp",)
 #: per-device scalars (one value per device under DD shard_map)
-CACHE_DEVICE_SCALAR_FIELDS = ("rng_ctr", "served_min")
+CACHE_DEVICE_SCALAR_FIELDS = ("rng_ctr",)
 #: small replicated global tables / scalars
 CACHE_GLOBAL_FIELDS = ("iso_ps", "iso_ts", "iso_n")
 
@@ -254,9 +250,8 @@ def astype_state(atm: "Atm" = None, cache: "Cache" = None,
     grid axes go to float32 while parcel **time stays float64** (jsec
     magnitudes ~1e9 need it).  Position resolution at float32 is
     ~1e-5 degrees (~1 m) — the same order as the float32 met fields'
-    own information content.  On TPU, float64 is software-emulated, so
-    this is the fast path; float64 remains the reference-parity
-    default.  Returns the same tuple shape as the non-None inputs.
+    own information content.  Float32 halves the bytes every gather
+    moves; float64 remains the reference-parity default.  Returns the same tuple shape as the non-None inputs.
     """
     out = []
     if atm is not None:

@@ -39,11 +39,11 @@ LOG = []
 MAX_RUN_AGE = 3600.0
 
 FORM = """<!doctype html>
-<html><head><title>mptrac-tpu web runner</title>
+<html><head><title>MPTRAC web runner</title>
 <style>body{{font-family:sans-serif;max-width:720px;margin:2em auto}}
 label{{display:block;margin-top:.6em}}
 fieldset{{margin-top:1em}}</style></head><body>
-<h2>mptrac-tpu simulation runner</h2>
+<h2>MPTRAC simulation runner</h2>
 <form method="post" action="/run">
 <fieldset><legend>Meteo data</legend>
 <label>Source <select name="met">{met_options}</select></label>
@@ -125,7 +125,17 @@ def clean_old_runs():
             RUNS.pop(run_id, None)
 
 
+#: Runs execute one at a time: each run's trac process is a JAX
+#: process, and one of those reserves most of a GPU's memory.
+_SIM_LOCK = threading.Lock()
+
+
 def _run_simulation(run_id, params):
+    with _SIM_LOCK:
+        _simulate(run_id, params)
+
+
+def _simulate(run_id, params):
     workdir = RUNS[run_id]["dir"]
     try:
         env = dict(os.environ, PYTHONPATH=CONFIG["repo"])

@@ -1,6 +1,6 @@
 // Native met-file loader: threaded decode + asynchronous prefetch.
 //
-// TPU-native counterpart of the reference's host-side met ingest
+// Counterpart of the reference's host-side met ingest
 // machinery (reference /root/reference/src/mptrac.c: read_met_bin
 // c:8563, compress_pck c:986, and the page-cache prefetch
 // `cat file > /dev/null &` in mptrac_get_met c:6222).  The simulation

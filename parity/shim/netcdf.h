@@ -3,7 +3,7 @@
  * libnetcdf.so.19 (which ships without development headers in this
  * image).  Constants are the stable netCDF ABI values (netcdf-c
  * include/netcdf.h, v4.9.0).  Used only by the golden-parity harness
- * (parity/build_ref.sh); the TPU framework itself reads netCDF through
+ * (parity/build_ref.sh); the framework itself reads netCDF through
  * its own pure-Python HDF5 reader (mptrac_tpu/io/hdf5.py). */
 #ifndef PARITY_NETCDF_H
 #define PARITY_NETCDF_H

@@ -97,8 +97,7 @@ atm_local = Atm(
 cache_local = jax.tree.map(lambda x: x, cache_all)
 from mptrac_tpu.types import Cache
 cache_local = Cache.zeros(cap)
-cache_local = cache_local.replace(rng_ctr=np.zeros(1, np.uint64),
-                                  served_min=np.ones(1, np.float32))
+cache_local = cache_local.replace(rng_ctr=np.zeros(1, np.uint64))
 
 atm_g = multihost.globalize(mesh, atm_local,
                             ddm._atm_spec("sub", ("m",)))

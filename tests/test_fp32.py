@@ -1,7 +1,7 @@
 """fp32 compute mode: dtype stability through the pipeline and
 accuracy vs the float64 reference path (framework extension — the
-reference model is double-only; float64 is software-emulated on TPU,
-so fp32 is the TPU fast path)."""
+reference model is double-only; fp32 halves the bytes every gather
+moves)."""
 
 import jax
 import jax.numpy as jnp

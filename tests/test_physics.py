@@ -168,6 +168,69 @@ def test_sort_groups_by_cell():
                                np.sort(np.asarray(atm2.lon)))
 
 
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.float64])
+def test_sort_handles_arbitrary_permutation(dtype):
+    """module_sort is exact for ANY initial order (not only for the
+    near-sorted order of a re-sort) in f32 and f64 state, permutes
+    the cache with the parcels, and keeps parcel time float64."""
+    from mptrac_tpu.ops.sort import module_sort, sort_key
+    from mptrac_tpu.types import astype_state
+    met01 = stack_met(make_wind_met(nx=36, ny=19, nz=8),
+                      make_wind_met(t0=3600.0, nx=36, ny=19, nz=8))
+    rng = np.random.default_rng(11)
+    n = 2048
+    atm = make_atm(rng.uniform(-180, 180, n), rng.uniform(-85, 85, n),
+                   rng.uniform(10, 1000, n), ("m",))
+    # times that need all 53 significand bits
+    atm = atm.replace(time=jnp.asarray(rng.uniform(3e8, 4e8, n)),
+                      q={"m": jnp.asarray(rng.uniform(0, 1, n))})
+    cache = Cache.zeros(n).replace(
+        dt=jnp.asarray(rng.uniform(-180, 180, n)),
+        uvwp=jnp.asarray(rng.normal(size=(3, n)), jnp.float32),
+        iso_var=jnp.asarray(rng.uniform(0, 1, n)))
+    if dtype == jnp.float32:
+        atm, cache, met01 = astype_state(atm, cache, met01)
+    atm2, cache2 = jax.jit(module_sort)(met01, atm, cache)
+
+    order = np.argsort(np.asarray(sort_key(met01, atm)), kind="stable")
+    assert atm2.time.dtype == jnp.float64
+    for f in ("time", "lon", "lat", "p"):
+        assert getattr(atm2, f).dtype == getattr(atm, f).dtype
+        np.testing.assert_array_equal(np.asarray(getattr(atm2, f)),
+                                      np.asarray(getattr(atm, f))[order])
+    np.testing.assert_array_equal(np.asarray(atm2.q["m"]),
+                                  np.asarray(atm.q["m"])[order])
+    for f in ("dt", "iso_var"):
+        np.testing.assert_array_equal(np.asarray(getattr(cache2, f)),
+                                      np.asarray(getattr(cache, f))[order])
+    np.testing.assert_array_equal(np.asarray(cache2.uvwp),
+                                  np.asarray(cache.uvwp)[:, order])
+
+
+def test_clim_tropo_exact_in_f32():
+    """At table nodes the tropopause lookup returns clim.tropo[i, j]
+    bit for bit in f32 state: the one-hot row selection must not lose
+    mantissa bits (a GPU would run a default-precision f32 matmul in
+    TF32)."""
+    from mptrac_tpu.climatology import clim_tropo
+    from mptrac_tpu.types import astype_state
+    ctl = read_ctl(None, ["NQ", "0", "METBASE", "-"])
+    clim = astype_state(clim=read_clim(ctl))
+    assert clim.tropo.dtype == jnp.float32
+    tt = np.asarray(clim.tropo_time)
+    tl = np.asarray(clim.tropo_lat)
+    # interior nodes: at the last node of an axis the lookup
+    # interpolates with weight 1 from the cell below
+    ii, jj = np.meshgrid(np.arange(tt.size - 1), np.arange(tl.size - 1),
+                         indexing="ij")
+    ii, jj = ii.ravel(), jj.ravel()
+    got = jax.jit(lambda t, lat: clim_tropo(clim, t, lat))(
+        jnp.asarray(tt[ii], jnp.float64), jnp.asarray(tl[jj]))
+    assert got.dtype == jnp.float32
+    np.testing.assert_array_equal(np.asarray(got),
+                                  np.asarray(clim.tropo)[ii, jj])
+
+
 def test_isosurf_pressure_and_balloon(tmp_path):
     """Isosurface modes: 1 pins parcels to their initial pressure, 4
     follows a balloon p(t) track (reference module_isosurf,

@@ -56,3 +56,10 @@ def test_zeta_atm(zeta_run, stamp):
         zeta_run / f, GOLD / f,
         col_tol={0: (0, 0), 1: (0, 1e-4), 2: (0, 1e-4), 3: (0, 1e-4)},
         default=(1e-4, 1e-4))
+
+
+@pytest.mark.chip
+@pytest.mark.parametrize("stamp", ["00_00_00", "03_00_00", "06_00_00"])
+def test_zeta_atm_on_chip(chip, zeta_run, stamp):
+    """The same golden check with run_trac on the GPU."""
+    test_zeta_atm(zeta_run, stamp)
